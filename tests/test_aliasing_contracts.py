@@ -2,7 +2,7 @@
 
 The reference hands out its internal numpy buffers
 (`classes/signal.py:220`, `classes/spectrum.py:230`); user code mutates
-them in place. These tests pin the TPU-native emulation: the Signal
+them in place. These tests pin the device-backed emulation: the Signal
 write-back host mirror (`classes/signal.py:_AliasedTimeData`) and the
 host-authoritative Spectrum storage.
 """
@@ -10,7 +10,7 @@ host-authoritative Spectrum storage.
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 
 @pytest.fixture
@@ -105,7 +105,7 @@ class TestDeviceReturns:
 
     def test_get_csm_return_device(self, noise):
         f, C = noise.get_csm(return_device=True)
-        from dsptoolbox_tpu.classes.signal import DeviceSpectralData
+        from dsptoolbox_jax.classes.signal import DeviceSpectralData
 
         assert isinstance(C, DeviceSpectralData)
         f2, C_host = noise.get_csm(force_computation=True)

@@ -14,7 +14,7 @@ import types
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 
 @pytest.fixture

@@ -7,8 +7,8 @@ frameworks so beamformer maps can be compared numerically.
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import beamforming as bf
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import beamforming as bf
 
 EXAMPLE = "/root/reference/example_data"
 
@@ -170,7 +170,7 @@ class TestFrequencyBeamformers:
         """The batched on-device CLEAN-SC (one program, lax.fori_loop
         with masked early exit) must match the host per-bin oracle
         loop."""
-        from dsptoolbox_tpu import _config
+        from dsptoolbox_jax import _config
 
         (ma_m, s_m), _ = array_signal_pair
         g_m, _ = _grids(ref)
@@ -387,7 +387,7 @@ class TestTimeBeamformer:
     ):
         """Multi-chunk grid execution (tiny chunk budget) must equal the
         one-chunk path — exercises the last-chunk edge padding + trim."""
-        from dsptoolbox_tpu.beamforming import beamforming as bfm
+        from dsptoolbox_jax.beamforming import beamforming as bfm
 
         (ma_m, s_m), _ = array_signal_pair
         xval = np.arange(-0.5, 0.5, 0.15)

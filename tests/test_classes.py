@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import pytest
 from scipy import signal as ss
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 EXAMPLE = "/root/reference/example_data"
 
@@ -254,7 +254,7 @@ class TestStreamingParity:
         rng = np.random.default_rng(9)
         fir = rng.standard_normal(300)
         x = rng.standard_normal(1024)
-        from dsptoolbox_tpu.realtime import FIRUniformPartitioned
+        from dsptoolbox_jax.realtime import FIRUniformPartitioned
 
         f = FIRUniformPartitioned(fir)
         f.prepare(blocksize, 1)
@@ -270,7 +270,7 @@ class TestStreamingParity:
         rng = np.random.default_rng(10)
         fir = rng.standard_normal(150)
         x = rng.standard_normal(1024)
-        from dsptoolbox_tpu.realtime import FIRFilterOverlapSave
+        from dsptoolbox_jax.realtime import FIRFilterOverlapSave
 
         f = FIRFilterOverlapSave(fir)
         f.prepare(128, 1)
@@ -286,7 +286,7 @@ class TestStreamingParity:
         rng = np.random.default_rng(11)
         b, a = ss.butter(3, 0.2)
         x = rng.standard_normal(256)
-        from dsptoolbox_tpu.realtime import IIRFilter
+        from dsptoolbox_jax.realtime import IIRFilter
 
         f = IIRFilter(b.copy(), a.copy())
         out = np.array([f.process_sample(xi, 0) for xi in x])
@@ -294,7 +294,7 @@ class TestStreamingParity:
         close(out, expected, 1e-6, "iir per-sample")
 
     def test_svf_filter_signal(self):
-        from dsptoolbox_tpu.realtime import StateVariableFilter
+        from dsptoolbox_jax.realtime import StateVariableFilter
 
         svf = StateVariableFilter(1000.0, 1.0, 16000)
         s = dsp.Signal(None, np.random.randn(512, 2) * 0.2, 16000)
@@ -530,8 +530,8 @@ class TestDeviceResidentPaths:
     def test_device_time_data_setter_matches_host(self):
         import jax.numpy as jnp
 
-        from dsptoolbox_tpu.classes import Signal
-        from dsptoolbox_tpu.classes.signal import DeviceTimeData
+        from dsptoolbox_jax.classes import Signal
+        from dsptoolbox_jax.classes.signal import DeviceTimeData
 
         rng = np.random.default_rng(3)
         td = rng.standard_normal((1024, 2)) * 2.0  # over 0 dBFS
@@ -565,13 +565,13 @@ class TestDeviceResidentPaths:
         )
 
     def test_get_spectrum_device_matches_host(self):
-        from dsptoolbox_tpu.classes import Signal
+        from dsptoolbox_jax.classes import Signal
 
         rng = np.random.default_rng(4)
         s = Signal.from_time_data(
             rng.standard_normal((4096, 2)) * 0.4, 48000
         )
-        from dsptoolbox_tpu.standard.enums import SpectrumMethod
+        from dsptoolbox_jax.standard.enums import SpectrumMethod
 
         # Welch default: real spectrum, no imaginary part
         f_host, sp_host = s.get_spectrum()
@@ -591,7 +591,7 @@ class TestDeviceResidentPaths:
                                    atol=1e-6)
 
     def test_get_csm_device_matches_host(self):
-        from dsptoolbox_tpu.classes import Signal
+        from dsptoolbox_jax.classes import Signal
 
         rng = np.random.default_rng(5)
         s = Signal.from_time_data(
@@ -621,8 +621,8 @@ class TestClassesReviewRegressions:
         r.spectrum_method = ref.SpectrumMethod.FFT
         f_r, sp_r = r.get_spectrum()
 
-        from dsptoolbox_tpu.classes import Signal
-        from dsptoolbox_tpu.standard.enums import SpectrumMethod
+        from dsptoolbox_jax.classes import Signal
+        from dsptoolbox_jax.standard.enums import SpectrumMethod
 
         s = Signal(None, td, 48000)
         s.time_data_imaginary = ti
@@ -636,7 +636,7 @@ class TestClassesReviewRegressions:
     def test_initialize_zi_steady_state(self, ref):
         from scipy.signal import sosfilt_zi
 
-        import dsptoolbox_tpu as dsp
+        import dsptoolbox_jax as dsp
 
         f = dsp.Filter.iir_filter(
             4, 1000.0, type_of_pass=dsp.FilterPassType.Lowpass,
@@ -663,7 +663,7 @@ class TestClassesReviewRegressions:
         )
 
     def test_filter_and_resample_length_matches_reference(self, ref):
-        import dsptoolbox_tpu as dsp
+        import dsptoolbox_jax as dsp
 
         rng = np.random.default_rng(23)
         td = rng.standard_normal((4800, 1))
@@ -682,7 +682,7 @@ class TestClassesReviewRegressions:
         )
 
     def test_spectrum_trim_exclusive_matches_reference(self, ref):
-        import dsptoolbox_tpu as dsp
+        import dsptoolbox_jax as dsp
 
         f = np.linspace(0.0, 1000.0, 101)
         data = np.abs(np.random.default_rng(24).standard_normal((101, 2)))
@@ -698,7 +698,7 @@ class TestClassesReviewRegressions:
         )
 
     def test_remove_channel_negative_index(self):
-        import dsptoolbox_tpu as dsp
+        import dsptoolbox_jax as dsp
 
         rng = np.random.default_rng(25)
         td = rng.standard_normal((256, 3))
@@ -714,7 +714,7 @@ class TestClassesReviewRegressions:
         # (reference tests/test_classes.py:155)
         import pytest
 
-        import dsptoolbox_tpu as dsp
+        import dsptoolbox_jax as dsp
 
         rng = np.random.default_rng(26)
         td = rng.standard_normal((128, 2))

@@ -2,7 +2,7 @@
 
 The default drop-in call sequence must collapse to ONE composite device
 program per flush while producing numbers identical to eager dispatch
-(`dsptoolbox_tpu._defer`). The reference executes every getter eagerly
+(`dsptoolbox_jax._defer`). The reference executes every getter eagerly
 on the host (`/root/reference/dsptoolbox/classes/signal.py:861-1007`);
 these tests pin that our deferral is an invisible optimization: same
 values, same shapes/dtypes, correct metadata, correct forcing at every
@@ -12,10 +12,10 @@ public boundary.
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import _config, _defer
-from dsptoolbox_tpu._defer import DeferredArray
-from dsptoolbox_tpu.classes.lazy_array import LazyHostArray
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import _config, _defer
+from dsptoolbox_jax._defer import DeferredArray
+from dsptoolbox_jax.classes.lazy_array import LazyHostArray
 
 EXAMPLE = "/root/reference/example_data"
 
@@ -105,7 +105,7 @@ class TestDeferredChain:
         """A plain jitted consumer (any _dev_jit site) must silently
         force pending inputs, not crash or corrupt."""
         f2, sp = speech.get_spectrum(force_computation=True)
-        from dsptoolbox_tpu.classes.signal import _dev_jit
+        from dsptoolbox_jax.classes.signal import _dev_jit
 
         import jax.numpy as jnp
 

@@ -11,15 +11,15 @@ import jax
 import jax.numpy as jnp
 from scipy.signal import sosfilt as scipy_sosfilt, sosfreqz as scipy_sosfreqz
 
-from dsptoolbox_tpu.classes.filter_helpers import biquad_coefficients
-from dsptoolbox_tpu.ops.differentiable import (
+from dsptoolbox_jax.classes.filter_helpers import biquad_coefficients
+from dsptoolbox_jax.ops.differentiable import (
     biquad_coefficients_diff,
     fit_sos_to_magnitude,
     sosfilt_diff,
     sosfreqz_diff,
     sosfreqz_host,
 )
-from dsptoolbox_tpu.standard.enums import BiquadEqType
+from dsptoolbox_jax.standard.enums import BiquadEqType
 
 FS = 48000
 

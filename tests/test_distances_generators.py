@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 EXAMPLE = "/root/reference/example_data"
 

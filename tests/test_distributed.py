@@ -1,10 +1,10 @@
 """Two-process `jax.distributed` cluster over TCP on this host.
 
-Turns the multi-host (DCN) story from prose into an executed test: two
+Turns the multi-host story from prose into an executed test: two
 OS processes, one coordinator, a global 2-device mesh, and one
 cross-process `psum` whose result both processes verify. This is the
-same initialization + collective path a TPU pod slice uses — only the
-transport differs. Skips where the runtime lacks distributed support.
+same initialization + collective path a multi-host GPU cluster uses —
+only the transport differs. Skips where the runtime lacks distributed support.
 """
 
 import os

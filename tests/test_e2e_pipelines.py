@@ -4,7 +4,7 @@ against the reference oracle."""
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 EXAMPLE = "/root/reference/example_data"
 

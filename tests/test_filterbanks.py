@@ -7,7 +7,7 @@ band outputs can be compared sample-exactly (up to fp32).
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 FS = 5000
 

@@ -8,7 +8,7 @@ the effect is deterministic.
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 EXAMPLE = "/root/reference/example_data"
 

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsptoolbox_tpu import helpers as H
+from dsptoolbox_jax import helpers as H
 
 rng = np.random.default_rng(3)
 
@@ -139,7 +139,7 @@ class TestGainLevel:
 
     def test_fade(self, ref, close):
         from dsptoolbox.helpers.gain_and_level import _fade
-        from dsptoolbox_tpu.standard.enums import FadeType as MyFade
+        from dsptoolbox_jax.standard.enums import FadeType as MyFade
         from dsptoolbox.standard.enums import FadeType as RefFade
 
         x = rng.standard_normal((1000, 2))
@@ -157,7 +157,7 @@ class TestSpectrumUtilities:
     def test_scale_spectrum(self, ref, close):
         from dsptoolbox.helpers.spectrum_utilities import _scale_spectrum
         from dsptoolbox.standard.enums import SpectrumScaling as RefScaling
-        from dsptoolbox_tpu.standard.enums import SpectrumScaling as MyScaling
+        from dsptoolbox_jax.standard.enums import SpectrumScaling as MyScaling
 
         T = 512
         x = rng.standard_normal((T, 2))
@@ -270,7 +270,7 @@ class TestHelpersReviewRegressions:
         3+ channels (parity quirk, reproduced)."""
         from dsptoolbox.helpers.latency import _fractional_latency
 
-        from dsptoolbox_tpu.helpers.latency import fractional_latency
+        from dsptoolbox_jax.helpers.latency import fractional_latency
 
         rng = np.random.default_rng(51)
         T = 2048
@@ -291,10 +291,10 @@ class TestHelpersReviewRegressions:
             _get_normalized_spectrum,
         )
 
-        from dsptoolbox_tpu.helpers.spectrum_utilities import (
+        from dsptoolbox_jax.helpers.spectrum_utilities import (
             get_normalized_spectrum,
         )
-        from dsptoolbox_tpu.standard.enums import MagnitudeNormalization
+        from dsptoolbox_jax.standard.enums import MagnitudeNormalization
 
         rng = np.random.default_rng(52)
         f = np.linspace(10.0, 24000.0, 512)

@@ -1,21 +1,19 @@
-"""Frequency-sampling IIR path (`ops.iir_freq`) and the Pallas blocked-IIR
-v2 kernel (`ops.pallas_iir`, interpret mode on the CPU mesh) against the
-scipy float64 oracle."""
+"""Frequency-sampling IIR path (`ops.iir_freq`) and the blocked IIR
+(`ops.iir_block.sosfilt_block`) against the scipy float64 oracle."""
 
 import numpy as np
 import pytest
 from scipy.signal import butter, cheby1, ellip, sosfilt, sosfilt_zi
 
 import jax.numpy as jnp
-from dsptoolbox_tpu.ops.iir import sosfilt_zero_state
-from dsptoolbox_tpu.ops.iir_block import _block_operators, sosfilt_block
-from dsptoolbox_tpu.ops.iir_freq import (
+from dsptoolbox_jax.ops.iir import sosfilt_zero_state
+from dsptoolbox_jax.ops.iir_block import sosfilt_block
+from dsptoolbox_jax.ops.iir_freq import (
     decay_margin,
     plan_nfft,
     sosfilt_bank_freq,
     sosfilt_freq,
 )
-from dsptoolbox_tpu.ops.pallas_iir import sosfilt_pallas
 
 RNG = np.random.default_rng(7)
 
@@ -81,49 +79,42 @@ class TestSosfiltFreq:
             assert _rel_err(y, y_ref) < 5e-6
 
 
-class TestPallasIIR:
+class TestSosfiltBlock:
     @pytest.mark.parametrize(
         "B,T,order,L",
         [(3, 1024, 4, 128), (1, 4096, 8, 128), (5, 2000, 2, 100)],
     )
-    def test_interpret_matches_scipy_and_xla(self, B, T, order, L):
+    def test_matches_scipy(self, B, T, order, L):
         sos = butter(order, 0.2, output="sos")
         x = RNG.standard_normal((B, T)).astype(np.float32)
-        lead = (T // L) * L
-        key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
-        H, G, A, M = (
-            np.asarray(m, np.float32) for m in _block_operators(key, L)
+        y, zf = sosfilt_block(sos, jnp.asarray(x), block_size=L)
+        y_ref, zf_ref = sosfilt(
+            sos, x.astype(np.float64), axis=-1,
+            zi=np.zeros((sos.shape[0], B, 2)),
         )
-        y, zf = sosfilt_pallas(
-            H, G, A, M, jnp.asarray(x[:, :lead]), interpret=True
-        )
-        y_ref = sosfilt(sos, x[:, :lead].astype(np.float64), axis=-1)
         assert _rel_err(y, y_ref) < 5e-6
-        # bit-comparable to the XLA blocked path (same operators, same
-        # matmul order within blocks)
-        y_xla, _ = sosfilt_block(sos, jnp.asarray(x[:, :lead]))
-        assert np.max(np.abs(np.asarray(y) - np.asarray(y_xla))) < 1e-5
+        zf_got = np.asarray(zf)  # (B, S, 2)
+        assert np.max(
+            np.abs(zf_got - np.transpose(zf_ref, (1, 0, 2)))
+        ) < 1e-6
 
-    def test_dispatch_in_sosfilt_block(self):
-        """Forced-on Pallas lead inside `sosfilt_block` (interpret mode)
-        agrees with the XLA prefix path, remainder tail and zf included."""
-        from dsptoolbox_tpu import _config
-
+    def test_long_signal_with_remainder_and_state(self):
+        """32 full blocks plus a 77-sample tail, carried initial state:
+        output and final state against scipy."""
         sos = butter(6, 0.3, output="sos")
         x = RNG.standard_normal((2, 4096 + 77)).astype(np.float32)
         zi1 = np.tile(sosfilt_zi(sos)[None], (2, 1, 1)) * 0.3
-        y_ref, zf_ref = sosfilt_block(
+        y, zf = sosfilt_block(
             sos, jnp.asarray(x), zi=jnp.asarray(zi1, jnp.float32)
         )
-        _config.set_pallas_iir("on")
-        try:
-            y_p, zf_p = sosfilt_block(
-                sos, jnp.asarray(x), zi=jnp.asarray(zi1, jnp.float32)
-            )
-        finally:
-            _config.set_pallas_iir("auto")
-        assert np.max(np.abs(np.asarray(y_p) - np.asarray(y_ref))) < 1e-5
-        assert np.max(np.abs(np.asarray(zf_p) - np.asarray(zf_ref))) < 1e-6
+        y_ref, zf_ref = sosfilt(
+            sos, x.astype(np.float64), axis=-1,
+            zi=np.transpose(zi1, (1, 0, 2)),
+        )
+        assert _rel_err(y, y_ref) < 5e-6
+        assert np.max(
+            np.abs(np.asarray(zf) - np.transpose(zf_ref, (1, 0, 2)))
+        ) < 1e-6
 
     def test_initial_state_and_zf(self):
         sos = butter(4, 0.2, output="sos")
@@ -132,18 +123,11 @@ class TestPallasIIR:
         zi1 = np.tile(sosfilt_zi(sos)[None], (B, 1, 1)) * RNG.standard_normal(
             (B, 1, 1)
         )
-        key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
-        H, G, A, M = (
-            np.asarray(m, np.float32) for m in _block_operators(key, L)
-        )
-        y, zf = sosfilt_pallas(
-            H,
-            G,
-            A,
-            M,
+        y, zf = sosfilt_block(
+            sos,
             jnp.asarray(x),
-            s0=jnp.asarray(zi1.reshape(B, -1), np.float32),
-            interpret=True,
+            zi=jnp.asarray(zi1, jnp.float32),
+            block_size=L,
         )
         y_ref, zf_ref = sosfilt(
             sos,

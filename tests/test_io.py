@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu.io import read_audio, write_audio
-from dsptoolbox_tpu.io.flac import read_flac
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax.io import read_audio, write_audio
+from dsptoolbox_jax.io.flac import read_flac
 
 EXAMPLE = "/root/reference/example_data"
 
@@ -114,7 +114,7 @@ class TestFlacWrite:
         rng = np.random.default_rng(1)
         data = np.clip(rng.standard_normal((10000, 2)) * 0.3, -1, 0.999)
         path = str(tmp_path / "x.flac")
-        from dsptoolbox_tpu.io.flac import write_flac
+        from dsptoolbox_jax.io.flac import write_flac
 
         write_flac(path, data, 44100, bits)
         back, fs = read_audio(path)
@@ -157,7 +157,7 @@ class TestSafeSerialization:
         np.testing.assert_allclose(ir2.window, ir.window)
 
     def test_filter_roundtrips_all_representations(self, tmp_path):
-        from dsptoolbox_tpu.standard.enums import FilterCoefficientsType as FT
+        from dsptoolbox_jax.standard.enums import FilterCoefficientsType as FT
 
         filts = {
             "sos": dsp.Filter.iir_filter(
@@ -221,7 +221,7 @@ class TestIoReviewRegressions:
     def test_wide_buffer_preserved(self, tmp_path):
         """(frames, channels) is preserved as-is like soundfile — no
         orientation guessing for wide buffers."""
-        from dsptoolbox_tpu.io import read_audio, write_audio
+        from dsptoolbox_jax.io import read_audio, write_audio
 
         rng = np.random.default_rng(61)
         data = rng.standard_normal((3, 8)) * 0.4  # 3 frames, 8 channels
@@ -235,7 +235,7 @@ class TestIoReviewRegressions:
         import os
         import struct
 
-        from dsptoolbox_tpu.io import write_audio
+        from dsptoolbox_jax.io import write_audio
 
         rng = np.random.default_rng(62)
         data = rng.standard_normal((5, 1)) * 0.4  # 5*3 bytes: odd payload
@@ -246,7 +246,7 @@ class TestIoReviewRegressions:
         assert riff_size + 8 == os.path.getsize(p)
 
     def test_flac_bad_subtype_raises(self, tmp_path):
-        from dsptoolbox_tpu.io import write_audio
+        from dsptoolbox_jax.io import write_audio
 
         with pytest.raises(ValueError, match="not supported for FLAC"):
             write_audio(
@@ -256,7 +256,7 @@ class TestIoReviewRegressions:
 
 class TestAppendSpectraReference:
     def test_interpolates_to_first_frequency_vector(self, ref):
-        import dsptoolbox_tpu as dsp
+        import dsptoolbox_jax as dsp
 
         rng = np.random.default_rng(63)
         f1 = np.linspace(10.0, 1000.0, 128)

@@ -12,9 +12,9 @@ import pickle
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import _config
-from dsptoolbox_tpu.classes.lazy_array import (
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import _config
+from dsptoolbox_jax.classes.lazy_array import (
     LazyHostArray,
     materialize_all,
 )

@@ -4,16 +4,16 @@ class layer — `Signal.get_csm(mesh=...)`, `FilterBank.filter_signal(mesh=...)`
 against the single-device paths on the 8-virtual-device CPU mesh.
 
 The reference package has no distribution story (SURVEY §2.12); these tests
-pin the TPU-native scale-out layer's public surface.
+pin the multi-device scale-out layer's public surface.
 """
 
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import beamforming as bf
-from dsptoolbox_tpu.parallel import device_mesh
-from dsptoolbox_tpu.standard.enums import FilterBankMode
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import beamforming as bf
+from dsptoolbox_jax.parallel import device_mesh
+from dsptoolbox_jax.standard.enums import FilterBankMode
 
 FS = 16000
 

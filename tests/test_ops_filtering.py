@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import pytest
 from scipy import signal as ss
 
-from dsptoolbox_tpu.ops.iir import (
+from dsptoolbox_jax.ops.iir import (
     filtfilt_ba,
     lfilter,
     sosfilt,
     sosfilt_zi,
     sosfiltfilt,
 )
-from dsptoolbox_tpu.ops.fft_conv import (
+from dsptoolbox_jax.ops.fft_conv import (
     fft_convolve,
     fft_correlate,
     resample_poly,
@@ -127,7 +127,7 @@ class TestReviewRegressions:
         close(got, ref, 2e-5, "complex correlate")
 
     def test_sosfilt_block_empty_input(self):
-        from dsptoolbox_tpu.ops.iir_block import sosfilt_block
+        from dsptoolbox_jax.ops.iir_block import sosfilt_block
 
         sos = ss.butter(4, 0.3, output="sos")
         x = jnp.zeros((3, 0), jnp.float32)

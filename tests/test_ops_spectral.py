@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dsptoolbox_tpu.ops import spectral as sp
-from dsptoolbox_tpu.standard.enums import SpectrumScaling, Window
+from dsptoolbox_jax.ops import spectral as sp
+from dsptoolbox_jax.standard.enums import SpectrumScaling, Window
 
 from conftest import assert_close
 
@@ -182,8 +182,8 @@ def test_csm_from_spectrum(ref, scaling):
 def test_framing_roundtrip():
     import jax.numpy as jnp
 
-    from dsptoolbox_tpu.ops import frame_signal, reconstruct_framed_signal
-    from dsptoolbox_tpu.ops.windows import get_window
+    from dsptoolbox_jax.ops import frame_signal, reconstruct_framed_signal
+    from dsptoolbox_jax.ops.windows import get_window
 
     x = RNG.standard_normal((2, 10_000)).astype(np.float32)
     w = get_window(Window.Hann, 512, symmetric=False)
@@ -202,7 +202,7 @@ def test_framing_roundtrip():
 def test_wav_reader_against_scipy():
     import scipy.io.wavfile as wavfile
 
-    from dsptoolbox_tpu.io import read_wav
+    from dsptoolbox_jax.io import read_wav
 
     for name in ["rir.wav", "chirp.wav", "fuer_elise.wav", "chirp_stereo.wav"]:
         path = f"/root/reference/example_data/{name}"
@@ -220,7 +220,7 @@ def test_power_spectrogram_device_tf_parity():
     # _get_power_spectrogram_device hand-mirrors stft's t/f construction
     # (host-side, to avoid device-constant fetches); guard against the two
     # drifting apart, and check the power values themselves
-    import dsptoolbox_tpu as dsp
+    import dsptoolbox_jax as dsp
 
     rng = np.random.default_rng(12)
     s = dsp.Signal(None, rng.standard_normal((48000, 2)) * 0.3, 24000)
@@ -236,70 +236,69 @@ def test_power_spectrogram_device_tf_parity():
     )
 
 
-class TestPallasFraming:
-    def test_interpret_matches_xla_path(self):
-        """The fused Pallas framing kernel (interpret mode on CPU) must
-        match the XLA slice path exactly."""
+class TestWindowedFrames:
+    @pytest.mark.parametrize("detrend", [True, False])
+    def test_matches_numpy_stride_framing(self, detrend):
+        """`_windowed_frames` (frame, window, per-frame demean) against
+        numpy stride framing of the zero-padded signal."""
         import jax.numpy as jnp
 
-        from dsptoolbox_tpu.ops.framing import (
-            compute_number_frames,
-            frame_signal,
-        )
-        from dsptoolbox_tpu.ops.pallas_framing import (
-            windowed_frames_pallas,
-        )
+        from dsptoolbox_jax.ops.spectral import _windowed_frames
 
         L, S, T, B = 512, 256, 4096, 8
         rng = np.random.default_rng(0)
-        x = jnp.asarray(rng.standard_normal((B, T)).astype(np.float32))
+        x = rng.standard_normal((B, T)).astype(np.float32)
         win = np.hanning(L).astype(np.float32)
-        n_frames, _ = compute_number_frames(L, S, T, True)
-        span = (n_frames - 1) * S + L
-        xp = jnp.pad(x, ((0, 0), (0, span - T)))
-        for detrend in (True, False):
-            got = windowed_frames_pallas(
-                xp, win, S, n_frames, detrend, interpret=True
-            )
-            want = frame_signal(x, L, S, True) * jnp.asarray(win)
-            if detrend:
-                want = want - jnp.mean(want, axis=-1, keepdims=True)
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(want), atol=1e-6
-            )
+        n_frames = -(-T // S)
+        xp = np.pad(x, ((0, 0), (0, (n_frames - 1) * S + L - T)))
+        want = np.lib.stride_tricks.sliding_window_view(xp, L, axis=-1)[
+            :, ::S
+        ] * win
+        if detrend:
+            want = want - want.mean(axis=-1, keepdims=True)
+        got = np.asarray(_windowed_frames(jnp.asarray(x), win, S, detrend))
+        assert got.shape == want.shape == (B, n_frames, L)
+        np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-class TestBluesteinFFT:
-    """Opt-in general-length FFT (`ops/fft.py`) must be an exact DFT."""
+class TestGeneralLengthFFT:
+    """`jnp.fft` at lengths that are not powers of two (odd, 3·2^k,
+    5-smooth, prime) must be an exact DFT: the library pads FFTs to such
+    lengths (`ops.fft_conv.next_fast_len`)."""
 
-    def test_matches_numpy_all_paths(self, monkeypatch):
-        monkeypatch.setenv("DSPTB_BLUESTEIN_FFT", "1")
+    @pytest.mark.parametrize("n", [7, 96, 1000, 1013])
+    def test_matches_numpy(self, n):
         import jax.numpy as jnp
 
-        from dsptoolbox_tpu.ops import fft as dfft
+        rng = np.random.default_rng(n)
+        x = rng.standard_normal((3, n)).astype(np.float32)
+        got = np.asarray(jnp.fft.rfft(jnp.asarray(x), axis=-1))
+        want = np.fft.rfft(x.astype(np.float64), axis=-1)
+        assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-5
+        back = np.asarray(jnp.fft.irfft(jnp.asarray(got), n=n, axis=-1))
+        assert np.max(np.abs(back - x)) < 1e-5
+        z = (
+            rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+        ).astype(np.complex64)
+        Z = np.asarray(jnp.fft.fft(jnp.asarray(z), axis=-1))
+        wantZ = np.fft.fft(z.astype(np.complex128), axis=-1)
+        assert np.max(np.abs(Z - wantZ)) / np.max(np.abs(wantZ)) < 1e-5
+        back2 = np.asarray(jnp.fft.ifft(jnp.asarray(Z), axis=-1))
+        assert np.max(np.abs(back2 - z)) < 1e-4
 
-        rng = np.random.default_rng(0)
-        for n in (7, 96, 1000, 1013):  # incl. a prime
-            x = rng.standard_normal((3, n)).astype(np.float32)
-            got = np.asarray(dfft.rfft(jnp.asarray(x), axis=-1))
-            want = np.fft.rfft(x, axis=-1)
-            scale = np.max(np.abs(want))
-            assert np.max(np.abs(got - want)) / scale < 1e-5, n
-            back = np.asarray(
-                dfft.irfft(jnp.asarray(got), n=n, axis=-1)
-            )
-            assert np.max(np.abs(back - x)) < 1e-5, n
-            # complex fft/ifft roundtrip
-            z = (
-                rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
-            ).astype(np.complex64)
-            Z = np.asarray(dfft.fft(jnp.asarray(z), axis=-1))
-            wantZ = np.fft.fft(z, axis=-1)
-            assert (
-                np.max(np.abs(Z - wantZ)) / np.max(np.abs(wantZ)) < 1e-5
-            ), n
-            back2 = np.asarray(dfft.ifft(jnp.asarray(Z), axis=-1))
-            assert np.max(np.abs(back2 - z)) < 1e-4, n
+    @pytest.mark.parametrize("n", [12, 13])
+    def test_irfft_short_spectrum(self, n):
+        """irfft with fewer than n//2+1 bins zero-pads the half spectrum
+        before mirroring (numpy semantics)."""
+        import jax.numpy as jnp
+
+        rng2 = np.random.default_rng(1)
+        spec = (
+            rng2.standard_normal(3) + 1j * rng2.standard_normal(3)
+        ).astype(np.complex64)
+        got = np.asarray(jnp.fft.irfft(jnp.asarray(spec), n=n, axis=-1))
+        want = np.fft.irfft(spec, n=n, axis=-1)
+        np.testing.assert_allclose(got, want, atol=1e-6)
 
 
 class TestReviewRegressions:
@@ -348,27 +347,10 @@ class TestReviewRegressions:
             np.asarray(csm_got), csm_ref, tol=5e-5, name="csm-median-chunked"
         )
 
-    def test_bluestein_irfft_short_spectrum(self, monkeypatch):
-        """irfft with fewer than n//2+1 bins zero-pads the half spectrum
-        before mirroring (numpy semantics)."""
-        monkeypatch.setenv("DSPTB_BLUESTEIN_FFT", "1")
-        import jax.numpy as jnp
-
-        from dsptoolbox_tpu.ops import fft as dfft
-
-        rng2 = np.random.default_rng(1)
-        spec = (
-            rng2.standard_normal(3) + 1j * rng2.standard_normal(3)
-        ).astype(np.complex64)
-        for n in (12, 13):
-            got = np.asarray(dfft.irfft(jnp.asarray(spec), n=n, axis=-1))
-            want = np.fft.irfft(spec, n=n, axis=-1)
-            np.testing.assert_allclose(got, want, atol=1e-6)
-
     def test_frame_signal_short_input_empty(self):
         import jax.numpy as jnp
 
-        from dsptoolbox_tpu.ops import frame_signal
+        from dsptoolbox_jax.ops import frame_signal
 
         x = jnp.ones((2, 100), jnp.float32)
         frames = frame_signal(x, 512, 256, keep_last_frames=False)

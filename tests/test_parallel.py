@@ -11,10 +11,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dsptoolbox_tpu import parallel as par
-from dsptoolbox_tpu.ops.iir import sosfilt
-from dsptoolbox_tpu.ops.spectral import csm_welch, welch
-from dsptoolbox_tpu.standard.enums import SpectrumScaling
+from dsptoolbox_jax import parallel as par
+from dsptoolbox_jax.ops.iir import sosfilt
+from dsptoolbox_jax.ops.spectral import csm_welch, welch
+from dsptoolbox_jax.standard.enums import SpectrumScaling
 
 
 @pytest.fixture(scope="module")
@@ -145,7 +145,7 @@ class TestSequenceParallelFramedSpectral:
     (SURVEY §5's STFT-framing halo-exchange point)."""
 
     def test_parallel_stft_matches_single_device(self, mesh):
-        from dsptoolbox_tpu.ops.spectral import stft
+        from dsptoolbox_jax.ops.spectral import stft
 
         rng = np.random.default_rng(7)
         # T = 8 devices * 4096; window 512, 50% overlap -> step 256 | L
@@ -169,7 +169,7 @@ class TestSequenceParallelFramedSpectral:
         assert len(S_p.sharding.device_set) == 8
 
     def test_parallel_stft_physical_scaling(self, mesh):
-        from dsptoolbox_tpu.ops.spectral import stft
+        from dsptoolbox_jax.ops.spectral import stft
 
         rng = np.random.default_rng(8)
         x = jnp.asarray(
@@ -218,8 +218,8 @@ def test_parallel_das_map_matches_single_device(mesh):
     """Grid-parallel DAS equals the single-device einsum."""
     import jax.numpy as jnp
 
-    from dsptoolbox_tpu import parallel as par
-    from dsptoolbox_tpu.beamforming.beamforming import _das_map_core
+    from dsptoolbox_jax import parallel as par
+    from dsptoolbox_jax.beamforming.beamforming import _das_map_core
 
     rng = np.random.default_rng(11)
     M, G, F = 8, 16, 5
@@ -245,8 +245,8 @@ def test_parallel_das_map_matches_single_device(mesh):
 
 
 def test_parallel_batch_descriptors_matches_single_device(mesh):
-    from dsptoolbox_tpu import parallel as par
-    from dsptoolbox_tpu.room_acoustics.batch import batch_descriptors
+    from dsptoolbox_jax import parallel as par
+    from dsptoolbox_jax.room_acoustics.batch import batch_descriptors
 
     rng = np.random.default_rng(12)
     fs = 8000
@@ -272,7 +272,7 @@ class TestParallelReviewRegressions:
     def test_complex_bank_keeps_imaginary(self, mesh):
         """Complex cascades (gammatone) must not lose their imaginary
         parts in the sharded filter bank."""
-        from dsptoolbox_tpu.ops.iir_block import (
+        from dsptoolbox_jax.ops.iir_block import (
             sosfilt_bank_apply,
             sosfilt_bank_operators,
         )
@@ -313,7 +313,7 @@ class TestParallelReviewRegressions:
         np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-6)
 
     def test_parallel_csm_amplitude_scaling(self, mesh):
-        from dsptoolbox_tpu.ops.spectral import csm_welch
+        from dsptoolbox_jax.ops.spectral import csm_welch
 
         rng = np.random.default_rng(74)
         x = rng.standard_normal((8, 8192)).astype(np.float32) * 0.3

@@ -9,8 +9,8 @@ setter's arithmetic.
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu.classes.lazy_array import LazyHostArray
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax.classes.lazy_array import LazyHostArray
 
 EXAMPLE = "/root/reference/example_data"
 
@@ -225,7 +225,7 @@ class TestPipeline:
         )
 
     def test_filterbank_chain_with_multiband_output(self):
-        from dsptoolbox_tpu.standard.enums import FilterBankMode
+        from dsptoolbox_jax.standard.enums import FilterBankMode
 
         s = dsp.Signal(f"{EXAMPLE}/fuer_elise.wav")
         fs = s.sampling_rate_hz

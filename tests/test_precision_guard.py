@@ -1,12 +1,11 @@
-"""Guard: every MXU-lowering call site carries an explicit precision.
+"""Guard: every device contraction call site carries an explicit precision.
 
-On TPU, f32 `einsum`/`dot`/`matmul`/`tensordot`/conv default to a SINGLE
-bf16 MXU pass (~1e-2 relative error). The CPU test mesh ignores the
-`precision=` parameter (always true fp32), so a missing annotation is
-invisible to the whole oracle suite and only surfaces as wrong numbers
-on real hardware — the round-5 TPU smoke traced 20 golden mismatches to
-exactly this. `tools/precision_audit.py` AST-scans the package; this
-test keeps it at zero offenders.
+On an H100, f32 `einsum`/`dot`/`matmul`/`tensordot`/conv default to TF32
+(~1e-3 relative error). The CPU test mesh ignores the `precision=`
+parameter (always true fp32), so a missing annotation is invisible to the
+whole oracle suite and only surfaces as wrong numbers on the card.
+`tools/precision_audit.py` AST-scans the package; this test keeps it at
+zero offenders.
 """
 
 import os
@@ -23,6 +22,6 @@ from precision_audit import scan_package  # noqa: E402
 def test_no_mxu_site_without_explicit_precision():
     offenders = scan_package()
     assert not offenders, (
-        "MXU-lowering calls without explicit precision= (bf16 on TPU): "
+        "contractions without explicit precision= (TF32 on the GPU): "
         + "; ".join(f"{r}:{ln} {w}" for r, ln, w in offenders)
     )

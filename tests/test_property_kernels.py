@@ -14,9 +14,9 @@ from hypothesis import given, settings, strategies as st
 
 import jax.numpy as jnp
 
-from dsptoolbox_tpu.ops.fft_conv import fft_convolve, resample_poly
-from dsptoolbox_tpu.ops.framing import frame_signal
-from dsptoolbox_tpu.ops.iir_block import sosfilt_block
+from dsptoolbox_jax.ops.fft_conv import fft_convolve, resample_poly
+from dsptoolbox_jax.ops.framing import frame_signal
+from dsptoolbox_jax.ops.iir_block import sosfilt_block
 
 # fp32 kernels vs f64 scipy: scale-relative tolerance
 TOL = 5e-4
@@ -143,8 +143,8 @@ def test_banked_filterbank_matches_per_filter_loop(n_bands, orders, T, seed):
     band's cascade independently (identity-section padding is exact)."""
     import jax.numpy as jnp
 
-    from dsptoolbox_tpu.ops.iir import sosfilt
-    from dsptoolbox_tpu.ops.iir_block import (
+    from dsptoolbox_jax.ops.iir import sosfilt
+    from dsptoolbox_jax.ops.iir_block import (
         sosfilt_bank_apply,
         sosfilt_bank_operators,
     )

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import realtime as rt
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import realtime as rt
 
 FS = 4000
 
@@ -107,7 +107,7 @@ class TestLatticeLadder:
     a = np.array([1, -0.9, 0.64, -0.576])
 
     def test_coefficients_oppenheim(self):
-        from dsptoolbox_tpu.realtime.misc import (
+        from dsptoolbox_jax.realtime.misc import (
             lattice_ladder_coefficients_iir,
         )
 
@@ -120,7 +120,7 @@ class TestLatticeLadder:
         )
 
     def test_filtering_matches_lfilter(self, noise):
-        from dsptoolbox_tpu.realtime.misc import (
+        from dsptoolbox_jax.realtime.misc import (
             lattice_ladder_coefficients_iir,
         )
 
@@ -263,7 +263,7 @@ class TestParallelFilter:
         """The LS fit is ill-conditioned (SOS numerators reach ~1e4 with
         cancellation); it must consume a host f64 spectrum, not the
         backend's fp32 device rfft — otherwise the solution differs
-        between CPU and TPU (round-5 golden-smoke failure)."""
+        between the CPU and an accelerator."""
         b, a = sig.butter(2, 0.2)
         ir_td = sig.lfilter(b, a, np.eye(1, 256).squeeze())
         ir = dsp.ImpulseResponse(None, ir_td[:, None], FS)
@@ -316,7 +316,7 @@ class TestDesigners:
         return fb.get_ir(length_samples=length).collapse()
 
     def test_phase_linearizer(self):
-        from dsptoolbox_tpu.realtime.designers import PhaseLinearizer
+        from dsptoolbox_jax.realtime.designers import PhaseLinearizer
 
         ir = self._collapsed_ir(2**12)
         ir.spectrum_method = dsp.SpectrumMethod.FFT
@@ -330,7 +330,7 @@ class TestDesigners:
         assert filt.sampling_rate_hz == self.FS_HZ
 
     def test_group_delay_designer(self):
-        from dsptoolbox_tpu.realtime.designers import GroupDelayDesigner
+        from dsptoolbox_jax.realtime.designers import GroupDelayDesigner
 
         ir = self._collapsed_ir(2**12)
         _, gd = dsp.transfer_functions.group_delay(ir)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import room_acoustics as ra
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import room_acoustics as ra
 
 EXAMPLE = "/root/reference/example_data"
 
@@ -88,7 +88,7 @@ class TestSyntheticRIR:
         """The fp32 device lattice with double-single index arithmetic
         must place every image in the SAME sample bin as the f64 host
         oracle (zero support differences), with fp32-level values."""
-        from dsptoolbox_tpu.room_acoustics import _backend as bk
+        from dsptoolbox_jax.room_acoustics import _backend as bk
 
         room = ra.ShoeboxRoom([6.07, 5.13, 3.01], t60_s=0.5)
         for mo in (8, 14):
@@ -111,8 +111,8 @@ class TestSyntheticRIR:
             np.testing.assert_allclose(a, b, rtol=0, atol=2e-7 * np.max(np.abs(a)))
 
     def test_batched_ism_matches_single(self):
-        from dsptoolbox_tpu.room_acoustics import batch_synthetic_rirs
-        from dsptoolbox_tpu.room_acoustics import _backend as bk
+        from dsptoolbox_jax.room_acoustics import batch_synthetic_rirs
+        from dsptoolbox_jax.room_acoustics import _backend as bk
 
         room = ra.ShoeboxRoom([4.0, 3.0, 2.5], t60_s=0.4)
         rng = np.random.default_rng(3)
@@ -195,7 +195,7 @@ class TestConvolveRIR:
 
 
 class TestBatchedDescriptors:
-    """TPU-native batched descriptor battery (BASELINE config 4)."""
+    """Batched device descriptor battery (BASELINE config 4)."""
 
     def _fleet(self, n=8):
         import scipy.signal as sig
@@ -259,7 +259,7 @@ class TestBatchReverbReviewRegressions:
     def test_edt_ignores_leading_silence_and_matches_convention(self):
         import jax.numpy as jnp
 
-        from dsptoolbox_tpu.room_acoustics.batch import batch_reverb_times
+        from dsptoolbox_jax.room_acoustics.batch import batch_reverb_times
 
         fs = 16000
         T = fs

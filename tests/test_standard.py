@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
+import dsptoolbox_jax as dsp
 
 FS = 44100
 

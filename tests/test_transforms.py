@@ -8,8 +8,8 @@ outputs can be compared numerically.
 import numpy as np
 import pytest
 
-import dsptoolbox_tpu as dsp
-from dsptoolbox_tpu import transforms as tf
+import dsptoolbox_jax as dsp
+from dsptoolbox_jax import transforms as tf
 
 EXAMPLE = "/root/reference/example_data"
 CHIRP = f"{EXAMPLE}/chirp_mono.wav"
@@ -166,7 +166,7 @@ class TestDeviceResidentReturns:
         mor = tf.MorletWavelet(b=None, h=3, step=1e-3)
         host = tf.cwt(s_m, query_f, mor, None)
         dev = tf.cwt(s_m, query_f, mor, None, return_device=True)
-        from dsptoolbox_tpu.classes import DeviceSpectralData
+        from dsptoolbox_jax.classes import DeviceSpectralData
 
         assert isinstance(dev, DeviceSpectralData)
         np.testing.assert_allclose(dev.to_numpy(), host, atol=1e-7)
@@ -174,7 +174,7 @@ class TestDeviceResidentReturns:
         np.testing.assert_allclose(np.asarray(dev), host, atol=1e-7)
 
     def test_cwt_synchrosqueezed_fused_matches_two_stage(self, chirp_pair):
-        from dsptoolbox_tpu.transforms._backend import squeeze_scalogram
+        from dsptoolbox_jax.transforms._backend import squeeze_scalogram
 
         s_m, _ = chirp_pair
         s_m = dsp.pad_trim(s_m, 4096)
@@ -350,7 +350,7 @@ class TestTransformsReviewRegressions:
         when f*n/T reaches 1e5 cycles (phase computed mod 1)."""
         import jax.numpy as jnp
 
-        from dsptoolbox_tpu.transforms._backend import dft_core
+        from dsptoolbox_jax.transforms._backend import dft_core
 
         rng = np.random.default_rng(44)
         fs = 48000

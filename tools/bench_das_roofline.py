@@ -1,13 +1,11 @@
-"""Roofline decomposition of the packed-real DAS quadratic form.
+"""Time decomposition of the packed-real DAS quadratic form.
 
-Round-4 measured the production core (`beamforming._das_map_core`) at
-6.4% fp32-effective MFU on the 513-bin × 64-mic × 900-point sweep and
-named a stale reason. This harness times each component of the program
-in a fresh-process-safe, value-synced way so the remaining wall clock is
+Times each component of the production core (`beamforming._das_map_core`)
+on the 513-bin × 64-mic × 900-point sweep so the wall clock is
 attributed, then A/Bs candidate fixes (precision modes, prebuilt
-factors, fused alternatives).
+factors, fused alternatives). Each timing ends in `block_until_ready`.
 
-    python tools/bench_das_roofline.py            # on TPU
+    python tools/bench_das_roofline.py            # on a GPU
 """
 
 from __future__ import annotations
@@ -29,28 +27,15 @@ _HIGH = jax.lax.Precision.HIGHEST
 F, M, G = 513, 64, 900
 
 
-def _sync(x):
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    float(leaf.ravel()[0])
-
-
 def timeit(fn, args, n=10, warmup=2):
-    outs = None
     for i in range(warmup):
-        outs = fn(*args)
-    _sync(outs)
+        jax.block_until_ready(fn(*args))
     best = float("inf")
-    # distinct inputs each call (backend memoizes identical executions)
-    scale = jax.jit(lambda a, c: a * c)
     for rep in range(3):
         t0 = time.perf_counter()
         for i in range(n):
             outs = fn(*args)
-            args = tuple(
-                scale(a, 1.0 + 1e-7) if isinstance(a, jnp.ndarray) else a
-                for a in args
-            )
-        _sync(outs)
+        jax.block_until_ready(outs)
         best = min(best, (time.perf_counter() - t0) / n)
     return best
 
@@ -72,7 +57,7 @@ def main():
     report = {}
 
     # A. production core (steering build + B build + 2 einsums)
-    from dsptoolbox_tpu.beamforming.beamforming import _das_map_core
+    from dsptoolbox_jax.beamforming.beamforming import _das_map_core
 
     core = jax.jit(_das_map_core)
     report["A_full_core_ms"] = timeit(
@@ -108,7 +93,7 @@ def main():
     report["C_bblock_build_ms"] = timeit(bblock_only, (cre, cim)) * 1e3
     Bm = bblock_only(cre, cim)
 
-    # D. the two einsums with everything prebuilt (pure MXU+HBM story)
+    # D. the two einsums with everything prebuilt (matmul + memory only)
     @jax.jit
     def quad_only(hp, Bm):
         t = jnp.einsum("fgk,fkl->fgl", hp, Bm, precision=_HIGH)
@@ -151,7 +136,7 @@ def main():
     )
 
     # G. full core at default precision
-    from dsptoolbox_tpu.beamforming import beamforming as bfmod
+    from dsptoolbox_jax.beamforming import beamforming as bfmod
 
     def core_default(ampj, diffj, kj, cre, cim):
         ph = kj[:, None, None] * diffj.T[None]
@@ -194,32 +179,6 @@ def main():
         jax.jit(core_high), (ampj, diffj, kj, cre, cim)
     ) * 1e3
 
-    # cost-model accounting for the prebuilt quadratic form
-    peak_fp32_eff = 197e12 / 6
-    flops = 2 * F * G * (2 * M) * (2 * M) + 2 * F * G * (2 * M)
-    report["ideal_quadratic_ms_fp32eff"] = flops / peak_fp32_eff * 1e3
-    report["mfu_full_core_pct"] = round(
-        flops / (report["A_full_core_ms"] * 1e-3) / peak_fp32_eff * 100,
-        2,
-    )
-    report["mfu_quad_prebuilt_pct"] = round(
-        flops
-        / (report["D_quadratic_prebuilt_ms"] * 1e-3)
-        / peak_fp32_eff
-        * 100,
-        2,
-    )
-    report["mfu_full_core_high_pct"] = round(
-        flops
-        / (report["G2_full_core_high_ms"] * 1e-3)
-        / peak_fp32_eff
-        * 100,
-        2,
-    )
-    # HBM-traffic floor for the prebuilt quadratic (read hp+B, write map;
-    # t fused or not is the question the D-vs-E split answers)
-    bytes_min = 4 * (F * G * 2 * M + F * 2 * M * 2 * M + G * F)
-    report["hbm_floor_ms_819GBps"] = round(bytes_min / 819e9 * 1e3, 4)
     for k, v in report.items():
         if isinstance(v, float):
             report[k] = round(v, 4)

@@ -5,7 +5,7 @@ _room_acoustics.py:161-268`) is a Python triple loop over image orders;
 ours enumerates the whole image lattice as one chunked device
 scatter-add. Both sides run the PUBLIC `generate_synthetic_rir`.
 
-    python tools/bench_ism.py repo   # on TPU (value-fetch synced)
+    python tools/bench_ism.py repo   # on a GPU
     python tools/bench_ism.py ref    # reference on host CPU
 """
 
@@ -30,7 +30,7 @@ SR = 44100
 
 
 def bench_repo():
-    import dsptoolbox_tpu as dsp
+    import dsptoolbox_jax as dsp
 
     room = dsp.room_acoustics.ShoeboxRoom(DIM, t60_s=RT)
 
@@ -47,7 +47,7 @@ def bench_repo():
     for mo in (10, 17, 25):
         dts = [one(mo)[0] for _ in range(3)]
         results[f"max_order_{mo}"] = round(min(dts), 4)
-    print(json.dumps({"side": "repo_tpu", **results}), flush=True)
+    print(json.dumps({"side": "repo", **results}), flush=True)
 
 
 def bench_ref():

@@ -1,15 +1,11 @@
-"""Fleet-scale throughput benchmarks with utilization accounting.
+"""Fleet-scale throughput benchmarks.
 
-Round-3's per-chip utilization numbers (0.2–1.7% fp32-effective MFU)
-were measured at interactive sizes where the fixed ~1 ms program launch
-dominates. This suite measures the honest compute story once launches
-amortize: every config at fleet scale (≥256 signals / full-batch
-descriptor and beamforming sweeps), reporting aggregate throughput,
-fp32-effective MFU and HBM utilization from XLA's cost analysis via
-`tools/profiler.profile_program` (value-fetch-synced, distinct
-device-derived buffers).
+At interactive sizes the fixed per-program launch dominates; this suite
+measures every config at fleet scale (≥256 signals / full-batch
+descriptor and beamforming sweeps), reporting aggregate throughput and
+XLA's cost analysis via `tools/profiler.profile_program`.
 
-Run on the real TPU:  python tools/bench_scale.py [--json-out PATH]
+Run on a GPU:  python tools/bench_scale.py [--json-out PATH]
 """
 
 from __future__ import annotations
@@ -60,10 +56,10 @@ def scale_config2(batch=256):
     import jax
     import jax.numpy as jnp
 
-    from dsptoolbox_tpu.ops.framing import reconstruct_framed_signal
-    from dsptoolbox_tpu.ops.spectral import csm_welch, stft, welch
-    from dsptoolbox_tpu.ops.windows import get_window
-    from dsptoolbox_tpu.standard.enums import Window
+    from dsptoolbox_jax.ops.framing import reconstruct_framed_signal
+    from dsptoolbox_jax.ops.spectral import csm_welch, stft, welch
+    from dsptoolbox_jax.ops.windows import get_window
+    from dsptoolbox_jax.standard.enums import Window
 
     x, fs = _load(f"{EXAMPLE}/speech.flac")
     T = int(x.shape[-1])
@@ -107,7 +103,7 @@ def scale_config3(channels=64):
     import jax.numpy as jnp
     from scipy.signal import butter
 
-    from dsptoolbox_tpu.ops.iir_block import (
+    from dsptoolbox_jax.ops.iir_block import (
         sosfilt_bank_apply,
         sosfilt_bank_operators,
     )
@@ -150,7 +146,7 @@ def scale_config4(n_rirs=16384):
     """Full-batch descriptor sweep."""
     import jax.numpy as jnp
 
-    from dsptoolbox_tpu.room_acoustics import batch_descriptors
+    from dsptoolbox_jax.room_acoustics import batch_descriptors
 
     fs = 16000
     T = fs // 2
@@ -192,8 +188,7 @@ def scale_config5(n_bins=513):
 
     def run(cre, cim, hre_, him_):
         # production packed-real block form (beamforming._das_map_core):
-        # 2M contraction fills the MXU tile the 64-mic complex einsum
-        # half-wastes (A/B in tools/bench_das_pack.py)
+        # one real contraction over 2M instead of a complex one over M
         hp = jnp.concatenate([hre_, him_], axis=-1)
         B = jnp.concatenate(
             [
@@ -212,50 +207,13 @@ def scale_config5(n_bins=513):
     )
 
 
-def scale_config5b(n_bins=513):
-    """Production round-5 DAS path: the fused Pallas steering+quadratic
-    kernel (`ops/pallas_das.py`) on the same 513-bin x 64-mic x 900-pt
-    sweep as scale5 — steering build INCLUDED (scale5's einsum form takes
-    the steering tensor as a prebuilt input)."""
-    import jax.numpy as jnp
-
-    from dsptoolbox_tpu.ops.pallas_das import das_map_fused
-
-    rng = np.random.default_rng(0)
-    n_mics, n_grid = 64, 900
-    C = rng.standard_normal((n_bins, n_mics, n_mics)) + 1j * (
-        rng.standard_normal((n_bins, n_mics, n_mics))
-    )
-    C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
-    amp = rng.standard_normal((n_mics, n_grid)).astype(np.float32)
-    diff = rng.uniform(0.5, 3.0, (n_mics, n_grid)).astype(np.float32)
-    k = np.linspace(1.0, 400.0, n_bins).astype(np.float32)  # uniform ramp
-    args = (
-        jnp.asarray(np.real(C).astype(np.float32)),
-        jnp.asarray(np.imag(C).astype(np.float32)),
-        jnp.asarray(amp),
-        jnp.asarray(diff),
-        jnp.asarray(k),
-    )
-
-    def run(cre, cim, a, d, kk):
-        return das_map_fused(a, d, kk, cre, cim, uniform_grid=True)
-
-    return (
-        run, args,
-        f"scale5b: fused Pallas DAS (steering in-kernel) {n_bins} bins "
-        "x 64 mics x 900 pts",
-        None,
-    )
-
-
 def scale_config6(n_rirs=256):
     """Batched image-source generation: 256 RIRs in one program."""
     import jax.numpy as jnp
 
-    import dsptoolbox_tpu as dsp
-    from dsptoolbox_tpu.room_acoustics import batch
-    from dsptoolbox_tpu.room_acoustics._backend import (
+    import dsptoolbox_jax as dsp
+    from dsptoolbox_jax.room_acoustics import batch
+    from dsptoolbox_jax.room_acoustics._backend import (
         _U_VECTORS,
         _ism_device_program_batched,
     )
@@ -306,7 +264,6 @@ def main():
         (scale_config3, lambda r, a: {"audio_s_per_s": round(a / r["seconds_per_iter"], 1)}),
         (scale_config4, lambda r, a: {"rirs_per_s": round(16384 / r["seconds_per_iter"], 0)}),
         (scale_config5, lambda r, a: {"grid_pts_bins_per_s": round(900 * 513 / r["seconds_per_iter"], 0)}),
-        (scale_config5b, lambda r, a: {"grid_pts_bins_per_s": round(900 * 513 / r["seconds_per_iter"], 0)}),
         (scale_config6, lambda r, a: {"rirs_per_s": round(256 / r["seconds_per_iter"], 1)}),
     ):
         fn, args, label, audio_s = build()

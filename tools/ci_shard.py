@@ -46,10 +46,10 @@ WEIGHTS = {
     "test_defer.py": 50,
     "test_lazy_returns.py": 50,
     "test_fx.py": 50,
-    "test_pallas_das.py": 40,
+    "test_das_core.py": 40,
     "test_iir_freq.py": 40,
     "test_distributed.py": 40,
-    "test_pallas_bank.py": 30,
+    "test_iir_bank.py": 30,
     "test_aliasing_contracts.py": 30,
     "test_differentiable.py": 30,
     "test_prefix.py": 20,

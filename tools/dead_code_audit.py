@@ -4,7 +4,7 @@ Round-3 review found one dead verbatim reference transcription
 (`find_attack_hold_release`, since deleted). This audit keeps the
 invariant "zero uncalled transcribed functions" checkable:
 
-1. Static pass — every `def` in `dsptoolbox_tpu/` whose name is never
+1. Static pass — every `def` in `dsptoolbox_jax/` whose name is never
    mentioned again anywhere in the package, tests, tools, bench or graft
    entry files is a dead candidate. Attribute access, higher-order use
    and `__all__` exports all count as mentions, so false negatives are
@@ -24,7 +24,7 @@ import re
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(REPO, "dsptoolbox_tpu")
+PKG = os.path.join(REPO, "dsptoolbox_jax")
 
 # intentionally unreferenced-by-name (protocol hooks are invoked by the
 # runtime, not by name in our sources)

@@ -4,7 +4,8 @@ Usage: python tools/distributed_worker.py <process_id> <num_processes> <port>
 
 Each process owns one virtual CPU device; together they form a 2-device
 global mesh spanning process boundaries (the same bring-up path a
-multi-host TPU pod uses, with TCP standing in for DCN). The worker runs
+multi-host GPU cluster uses, with TCP on localhost standing in for the
+inter-host network). The worker runs
 one cross-process `psum` through `shard_map` and prints `PSUM_OK <value>`
 on success — executable evidence for the multi-host story in
 `docs/scaling.md`.

@@ -27,33 +27,33 @@ OUT = os.path.join(REPO, "docs", "api")
 # (page, module path, blurb) — mirrors /root/reference/docs/modules.rst +
 # classes.rst
 PAGES = [
-    ("classes", "dsptoolbox_tpu.classes", "Core containers"),
-    ("standard", "dsptoolbox_tpu.standard", "Standard signal operations"),
+    ("classes", "dsptoolbox_jax.classes", "Core containers"),
+    ("standard", "dsptoolbox_jax.standard", "Standard signal operations"),
     (
         "transfer_functions",
-        "dsptoolbox_tpu.transfer_functions",
+        "dsptoolbox_jax.transfer_functions",
         "System identification / transfer-function measurement",
     ),
     (
         "room_acoustics",
-        "dsptoolbox_tpu.room_acoustics",
+        "dsptoolbox_jax.room_acoustics",
         "Room acoustics: reverberation, modes, image-source RIRs",
     ),
-    ("filterbanks", "dsptoolbox_tpu.filterbanks", "Filter-bank factories"),
-    ("transforms", "dsptoolbox_tpu.transforms", "Signal transforms"),
-    ("beamforming", "dsptoolbox_tpu.beamforming", "Frequency/time-domain beamforming"),
-    ("effects", "dsptoolbox_tpu.effects", "Audio effects"),
-    ("generators", "dsptoolbox_tpu.generators", "Signal generators"),
-    ("distances", "dsptoolbox_tpu.distances", "Distance / similarity measures"),
-    ("audio_io", "dsptoolbox_tpu.audio_io", "Audio playback & recording"),
-    ("tools", "dsptoolbox_tpu.tools", "General helper tools"),
-    ("plots", "dsptoolbox_tpu.plots", "Plot builders"),
-    ("io", "dsptoolbox_tpu.io", "File I/O: WAV/RF64, native FLAC, safe serialization"),
-    ("parallel", "dsptoolbox_tpu.parallel", "Multi-chip sharding: meshes and parallel ops"),
-    ("pipeline", "dsptoolbox_tpu.pipeline", "Fused execution of public-call chains (one device program)"),
-    ("realtime", "dsptoolbox_tpu.realtime", "Block/sample streaming filters"),
-    ("ops", "dsptoolbox_tpu.ops", "Device kernels (XLA/Pallas) under the public API"),
-    ("enums", "dsptoolbox_tpu.standard.enums", "Enum vocabulary"),
+    ("filterbanks", "dsptoolbox_jax.filterbanks", "Filter-bank factories"),
+    ("transforms", "dsptoolbox_jax.transforms", "Signal transforms"),
+    ("beamforming", "dsptoolbox_jax.beamforming", "Frequency/time-domain beamforming"),
+    ("effects", "dsptoolbox_jax.effects", "Audio effects"),
+    ("generators", "dsptoolbox_jax.generators", "Signal generators"),
+    ("distances", "dsptoolbox_jax.distances", "Distance / similarity measures"),
+    ("audio_io", "dsptoolbox_jax.audio_io", "Audio playback & recording"),
+    ("tools", "dsptoolbox_jax.tools", "General helper tools"),
+    ("plots", "dsptoolbox_jax.plots", "Plot builders"),
+    ("io", "dsptoolbox_jax.io", "File I/O: WAV/RF64, native FLAC, safe serialization"),
+    ("parallel", "dsptoolbox_jax.parallel", "Multi-chip sharding: meshes and parallel ops"),
+    ("pipeline", "dsptoolbox_jax.pipeline", "Fused execution of public-call chains (one device program)"),
+    ("realtime", "dsptoolbox_jax.realtime", "Block/sample streaming filters"),
+    ("ops", "dsptoolbox_jax.ops", "Device kernels (XLA) under the public API"),
+    ("enums", "dsptoolbox_jax.standard.enums", "Enum vocabulary"),
 ]
 
 
@@ -198,10 +198,10 @@ def main():
         shutil.rmtree(OUT)
     os.makedirs(OUT)
     index = [
-        "# dsptoolbox_tpu — API reference",
+        "# dsptoolbox_jax — API reference",
         "",
         "Generated by `python tools/gen_api_docs.py` (introspection over the",
-        "installed package; the TPU-native analog of the reference's sphinx",
+        "installed package; the JAX rebuild's analog of the reference's sphinx",
         "tree at `/root/reference/docs/`). One page per public module:",
         "",
     ]
@@ -214,7 +214,7 @@ def main():
         print(f"{page:22s} {n_sym:4d} symbols")
     index += [
         "",
-        "Top-level re-exports (`import dsptoolbox_tpu as dsp`): the",
+        "Top-level re-exports (`import dsptoolbox_jax as dsp`): the",
         "`standard` functions and the core containers are available at the",
         "package root, mirroring the reference's `dsptoolbox/__init__.py`.",
         "",

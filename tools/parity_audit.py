@@ -1,10 +1,10 @@
-"""Automated public-surface parity audit: reference vs dsptoolbox_tpu.
+"""Automated public-surface parity audit: reference vs dsptoolbox_jax.
 
 Walks every public module, class, function, and method of the reference
-package (`/root/reference/dsptoolbox`) and checks that dsptoolbox_tpu
+package (`dsptoolbox`) and checks that dsptoolbox_jax
 exposes the same name with a compatible call signature. Emits a markdown
 crosswalk (docs/component_inventory.md) mapping each reference symbol to
-its TPU-rebuild location, and exits non-zero on any missing symbol or
+its JAX-rebuild location, and exits non-zero on any missing symbol or
 signature mismatch.
 
 Run:  python tools/parity_audit.py [--write]
@@ -57,7 +57,7 @@ def _stub_env():
         import soundfile  # noqa: F401
     except Exception:
         def _read(path, **kw):
-            import dsptoolbox_tpu.io as dtio
+            import dsptoolbox_jax.io as dtio
 
             return dtio.read_audio(path)
 
@@ -123,7 +123,7 @@ def _compare_callable(path, ref_obj, mine_obj, problems, rows):
                 )
             else:
                 problems.append(
-                    f"SIGNATURE {path}: ref{rs} != tpu{ms}"
+                    f"SIGNATURE {path}: ref{rs} != ours{ms}"
                 )
                 note = "SIGNATURE MISMATCH"
     rows.append((path, "ok" if not note.startswith("SIG") else "MISMATCH",
@@ -133,7 +133,7 @@ def _compare_callable(path, ref_obj, mine_obj, problems, rows):
 def _compare_class(path, ref_cls, mine, problems, rows):
     if not inspect.isclass(mine):
         problems.append(f"NOT A CLASS {path}")
-        rows.append((path, "MISSING", "not a class in tpu build"))
+        rows.append((path, "MISSING", "not a class in this build"))
         return
     rows.append((path, "ok", "class"))
     for name, member in sorted(vars(ref_cls).items()):
@@ -167,7 +167,7 @@ def run_audit():
     if "/root/reference" not in sys.path:
         sys.path.insert(0, "/root/reference")
     import dsptoolbox as ref
-    import dsptoolbox_tpu as mine
+    import dsptoolbox_jax as mine
 
     problems: list[str] = []
     rows: list[tuple[str, str, str]] = []
@@ -236,7 +236,7 @@ def main():
                "",
                "Generated by `tools/parity_audit.py`. Every public symbol "
                "of the reference package and its parity status in "
-               "`dsptoolbox_tpu`.",
+               "`dsptoolbox_jax`.",
                "",
                f"**{n_ok}/{len(rows)} symbols at parity, "
                f"{len(problems)} known problems.**",

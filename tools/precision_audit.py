@@ -1,14 +1,13 @@
-"""Audit MXU-lowering call sites for explicit precision.
+"""Audit device contraction call sites for explicit precision.
 
-On TPU, XLA lowers f32 `einsum`/`dot`/`matmul`/`tensordot` and
-convolutions to SINGLE-PASS bf16 MXU passes unless a `precision=` is
-given — a silent ~1e-2 relative error. The CPU test mesh ignores the
-parameter entirely (always true fp32), so only on-chip golden runs can
-catch a missing annotation; the round-5 TPU smoke traced 20 golden
-mismatches to exactly this. This audit walks the package AST and flags
-every MXU-lowering call without an explicit `precision=` (or
-`preferred_element_type=` inside Pallas kernels, where Mosaic's f32
-matmul is controlled separately).
+On an H100, XLA runs float32 `einsum`/`dot`/`matmul`/`tensordot` and
+convolutions in TF32 on the tensor cores unless a `precision=` is given:
+TF32 keeps a 10-bit mantissa, a silent ~1e-3 relative error, while
+`precision=HIGHEST` keeps full fp32 products. The CPU test mesh ignores
+the parameter entirely (always true fp32), so only runs on the card can
+catch a missing annotation. This audit walks the package AST and flags
+every contraction call on a device module without an explicit
+`precision=` (or `preferred_element_type=`).
 
 Run directly for a report, or through `tests/test_precision_guard.py`
 which fails on any unlisted site.
@@ -21,11 +20,12 @@ import os
 
 PACKAGE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "dsptoolbox_tpu",
+    "dsptoolbox_jax",
 )
 
-# jnp./lax. attribute calls that contract on the MXU at default precision
-MXU_ATTRS = {
+# jnp./lax. attribute calls that contract on the tensor cores at default
+# precision
+CONTRACTION_ATTRS = {
     "einsum",
     "dot",
     "matmul",
@@ -39,7 +39,7 @@ MXU_ATTRS = {
     "conv",
 }
 # module aliases whose calls run on device (np./scipy are host, exact)
-DEVICE_MODULES = {"jnp", "lax", "pl", "plgpu", "pltpu"}
+DEVICE_MODULES = {"jnp", "lax"}
 
 # Adjudicated sites that intentionally omit `precision=`:
 #   path:lineno: reason
@@ -66,7 +66,7 @@ def scan_file(path: str) -> list[tuple[str, int, str]]:
         if not isinstance(node, ast.Call):
             continue
         fn = node.func
-        if not isinstance(fn, ast.Attribute) or fn.attr not in MXU_ATTRS:
+        if not isinstance(fn, ast.Attribute) or fn.attr not in CONTRACTION_ATTRS:
             continue
         mod = _module_name(fn)
         if mod not in DEVICE_MODULES:

@@ -1,8 +1,8 @@
-"""Run the REFERENCE package's own pytest suite against dsptoolbox_tpu.
+"""Run the REFERENCE package's own pytest suite against dsptoolbox_jax.
 
 The strongest drop-in-compatibility proof available: every test file under
 /root/reference/tests does ``import dsptoolbox as dsp``; this runner aliases
-``dsptoolbox`` to ``dsptoolbox_tpu`` (in float64 mode, so strict
+``dsptoolbox`` to ``dsptoolbox_jax`` (in float64 mode, so strict
 ``assert_array_equal`` round-trips hold) and executes the reference suite
 unmodified, in place, out of the read-only reference tree.
 
@@ -14,7 +14,7 @@ Notes
 - float64 + x64 jax on CPU: the reference's tests assert exact float64
   round-trips of ``time_data`` (e.g. tests/test_standard.py:29), which a
   float32 device container cannot satisfy. This mode exists for oracle
-  work (`dsptoolbox_tpu._config.set_default_float`).
+  work (`dsptoolbox_jax._config.set_default_float`).
 - CWD must be the repo root: one reference test writes tests/f.pkl relative
   to CWD (`/root/reference/tests/test_standard.py:326-329`).
 - No files are written under /root/reference (cacheprovider disabled,
@@ -48,20 +48,20 @@ from conftest import _install_audio_stubs  # noqa: E402
 
 _install_audio_stubs()
 
-import dsptoolbox_tpu  # noqa: E402
-from dsptoolbox_tpu._config import set_default_float  # noqa: E402
+import dsptoolbox_jax  # noqa: E402
+from dsptoolbox_jax._config import set_default_float  # noqa: E402
 
 set_default_float("float64")
 
 # The alias: reference tests import `dsptoolbox` — serve ours instead.
-sys.modules["dsptoolbox"] = dsptoolbox_tpu
+sys.modules["dsptoolbox"] = dsptoolbox_jax
 
 
 # Submodule imports (`from dsptoolbox.classes.lattice_ladder_filter import
 # ...`, reference tests/test_filterbanks.py:338) bypass the sys.modules
 # alias and would re-execute our packages under the aliased name (circular
 # import). A meta-path finder maps every `dsptoolbox.*` module to the
-# already-imported `dsptoolbox_tpu.*` equivalent instead.
+# already-imported `dsptoolbox_jax.*` equivalent instead.
 import importlib  # noqa: E402
 import importlib.abc  # noqa: E402
 from importlib.machinery import ModuleSpec  # noqa: E402
@@ -69,7 +69,7 @@ from importlib.machinery import ModuleSpec  # noqa: E402
 
 class _AliasLoader(importlib.abc.Loader):
     def create_module(self, spec):
-        real_name = "dsptoolbox_tpu" + spec.name[len("dsptoolbox"):]
+        real_name = "dsptoolbox_jax" + spec.name[len("dsptoolbox"):]
         return importlib.import_module(real_name)
 
     def exec_module(self, module):
